@@ -40,3 +40,8 @@ def cluster(tmp_path, lakehouse):
     c = LocalCluster(catalog, store, str(tmp_path / "dp"), n_workers=2)
     yield c
     c.close()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where torch sees none")
